@@ -1,0 +1,102 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
+into a shared library with a plain C interface, and loaded with
+``ctypes``.  Libraries go to ``build/repro_torch/`` beside ``src/`` (a
+directory git ignores), named by a digest of the sources and flags, so a
+changed source is rebuilt and an unchanged one is built once.  Nothing is
+compiled when a module is imported: :func:`load` builds at first use, and
+:func:`build` compiles several sources at once, one ``nvcc`` each, all
+started together.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable, Tuple
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+SOURCES = ("arena_probe", "fused_retrieve")
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def nvcc() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH."""
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin/nvcc"
+    found = str(cand) if cand.exists() else shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: building the CUDA kernels needs "
+                           "the CUDA toolkit (set CUDA_HOME)")
+    return found
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to, keyed by sources and flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
+    """Compile every named source that is not built yet, all in parallel;
+    raise with the compiler's output if any fails."""
+    jobs: Dict[str, Tuple[subprocess.Popen, Path, Path]] = {}
+    paths = {}
+    try:
+        for name in names:
+            so = paths[name] = library_path(name)
+            if so.exists():
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
+            jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True), tmp, so)
+        errors = []
+        for name, (proc, tmp, so) in jobs.items():
+            log, _ = proc.communicate()
+            if proc.returncode:
+                errors.append(f"{name}.cu: nvcc exited {proc.returncode}\n"
+                              f"{log}")
+            else:
+                os.replace(tmp, so)
+        if errors:
+            raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
+    finally:
+        for proc, tmp, _ in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            tmp.unlink(missing_ok=True)
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = _libs[name] = ctypes.CDLL(str(build([name])[name]))
+            lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        return lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise if a launcher returned a CUDA error code."""
+    if code:
+        msg = lib.repro_cuda_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code}: {msg}")
