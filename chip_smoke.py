@@ -8,23 +8,38 @@ Phases, each reported on its own JSON line:
 1. device: the card's name and power limit (``nvidia-smi``); build: every
    CUDA kernel compiled from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together);
-2. parity: each kernel held against its plain torch version on the card,
-   on the paper's 600-tree hospital corpus and a 6,000-tree one, at hit
-   rates 0.1 and 0.9, with out-of-range tree ids and three temperature
-   rounds — exact integer equality, dtypes included (the probe's
-   bucket/slot on hits, where they are defined);
+2. parity: each retrieval kernel held against its plain torch version on
+   the card, on the paper's 600-tree hospital corpus and a 6,000-tree
+   one, at hit rates 0.1 and 0.9, with out-of-range tree ids and three
+   temperature rounds — exact integer equality, dtypes included (the
+   probe's bucket/slot on hits, where they are defined);
+   attention_parity: the flash-attention and decode-attention kernels
+   against their plain versions at the generator's heads (14/2/64),
+   batch 4, prefill lengths 1-512 and per-row cache lengths 1-512, in f32
+   (out and lse within 1e-5) and bf16 (out within 2^-6 |out| + 1e-6
+   elementwise, lse within 1e-5);
 3. path A: ``RAGPipeline`` (bank mode, on the card) answers the corpus's
    64 queries twice — 3,000 (tree, hash) queries each — through the
    arena-probe kernel; contexts must equal a CPU pipeline's;
 4. path B: ``RetrievalSession(fused=True)`` serves the same global
    requests on the 600- and 6,000-tree states through the fused-retrieve
    kernel; all five fields must equal an unfused session's;
-5. profile: wall and device-busy time per request of both paths under
-   torch.profiler, with the top kernels;
+   path C: ``RAGPipeline.answer`` generates 16 tokens for 8 queries with
+   ``paper-cftrag`` at full width in bf16 (random weights from a seeded
+   generator, ``attn_impl="flash"``, cache 512, batch 4) through the
+   probe and both attention kernels; checked teacher-forced against the
+   plain path (``attn_impl="reference"``) on the same tokens — bf16
+   logits within 0.15, and in a second f32 run greedy ids equal except
+   at listed steps whose plain top-2 gap is below twice the measured
+   logit delta;
+5. profile: wall and device-busy time per request of the three paths
+   under torch.profiler, with the top kernels; path C must show both
+   attention kernels and no plain attention op;
 6. kernels: per kernel its launches on the main path; kernel and plain
    device time per call (CUDA-graph replay, CUDA events) and eager time
-   (back-to-back launches, host overhead included); its bound from this
-   run's bytes and operations.
+   (back-to-back launches, host overhead included); the library call's
+   time where one computes the same function (SDPA for attention); its
+   bound from this run's bytes and operations.
 
 Each path's launch counters are set to 0 just before it and read just
 after.  The last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -45,14 +60,21 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM (NVIDIA's data sheet): HBM3 at 3.35 TB/s; int32 at 16.7 Top/s
 # = 132 SMs x 64 INT32 lanes x the 1.98 GHz implied by the 67 TFLOP/s
-# fp32 rate (132 SMs x 128 lanes x 2 per FMA).
+# fp32 rate (132 SMs x 128 lanes x 2 per FMA); dense bf16 tensor cores
+# at 989 TFLOP/s, f32 at 67 TFLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+FLOPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 # int32 operations per query, counted from the sources: hash, candidates,
 # 2S compares (probe); plus CSR window and per-step walk work (fused).
 PROBE_OPS_PER_QUERY = 65
 WALK_OPS_PER_STEP = 6
 MAX_LOCS, N_HIER = 4, 3
+# path C: answers, new tokens per answer, KV cache rows, batch rows
+ANSWERS, NEW_TOKENS, CACHE, BATCH = 8, 16, 512, 4
+# plain attention ops that must not run on path C
+PLAIN_ATTENTION_OPS = ("aten::softmax", "aten::_softmax", "aten::bmm",
+                       "aten::einsum")
 
 
 def emit(**fields) -> None:
@@ -71,7 +93,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # f32 products in full f32 (no TF32) for the f32 comparisons
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
     from repro_torch.core import (CFTDeviceState, build_bank, build_forest,
                                   hashing)
     from repro_torch.core.trag import STATE_FIELDS
@@ -82,9 +110,17 @@ def main() -> int:
     from repro_torch.kernels.cuckoo_lookup import (cuckoo_lookup_arena,
                                                    cuckoo_lookup_arena_ref)
     from repro_torch.kernels.fused_retrieve import kernel as fused_kernel
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_ref)
+    from repro_torch.kernels.decode_attention import kernel as decode_kernel
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.fused_retrieve import (fused_retrieve_ragged,
                                                     fused_retrieve_ragged_ref)
-    from repro_torch.serving import RAGPipeline, RetrievalSession
+    from repro_torch.models import lm
+    from repro_torch.serving import (RAGPipeline, Request, RetrievalSession,
+                                     ServeEngine)
 
     dev = torch.device("cuda")
     sizes = (600, 6000)
@@ -222,6 +258,57 @@ def main() -> int:
     check(all(v == 0 for v in err.values()),
           f"kernels disagree with their plain versions: {err}")
 
+    # --------------------------------------------------- 2b. attention parity
+    hq, hkv, hd = 14, 2, 64                      # paper-cftrag's heads
+    gen = torch.Generator(device=dev).manual_seed(0)
+    att_err = {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def attn_check(key, dtype, got, want):
+        """Max errors of (out, lse) against the plain version's; raises
+        past the stated tolerance."""
+        (out, lse), (w_out, w_lse) = got, want
+        d_out = (out.float() - w_out.float()).abs()
+        e_lse = float((lse - w_lse).abs().max())
+        if dtype == torch.float32:
+            ok = float(d_out.max()) <= 1e-5
+        else:
+            ok = bool((d_out <= w_out.float().abs() * 2 ** -6 + 1e-6).all())
+        e = att_err.setdefault(key, {"cases": 0, "out": 0.0, "lse": 0.0})
+        e["cases"] += 1
+        e["out"] = max(e["out"], float(d_out.max()))
+        e["lse"] = max(e["lse"], e_lse)
+        check(ok and e_lse <= 1e-5, f"{key}: out {float(d_out.max())}, "
+              f"lse {e_lse} past the tolerance")
+
+    decode_lens = ((1, 255, 256, 300), (512, 300, 255, 1))
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        for length in (1, 64, 127, 128, 300, 457, 512):
+            q, k, v = (randn(BATCH, h, length, hd).to(dtype)
+                       for h in (hq, hkv, hkv))
+            attn_check(f"flash_attention/{name}", dtype,
+                       flash_attention(q, k, v, True, return_lse=True),
+                       attention_ref(q, k, v, True, hd ** -0.5,
+                                     return_lse=True))
+        for lens in decode_lens:
+            q = randn(BATCH, hq, hd).to(dtype)
+            k, v = (randn(BATCH, hkv, CACHE, hd).to(dtype) for _ in range(2))
+            cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+            attn_check(f"decode_attention/{name}", dtype,
+                       decode_attention(q, k, v, cl, return_lse=True),
+                       decode_attention_ref(q, k, v, cl, return_lse=True))
+    torch.cuda.synchronize()
+    emit(phase="attention_parity", heads=[hq, hkv, hd], batch=BATCH,
+         prefill_lengths=[1, 64, 127, 128, 300, 457, 512],
+         decode_cache_lens=decode_lens,
+         tolerance={"float32": {"out": 1e-5, "lse": 1e-5},
+                    "bfloat16": {"out": "2^-6 * |out| + 1e-6 elementwise",
+                                 "lse": 1e-5}},
+         max_abs_err=att_err)
+
     # ------------------------------------------------- 3. main path A (probe)
     w = worlds[0]
     pipe = RAGPipeline(w.corpus, None, use_bank=True, device=dev)
@@ -294,11 +381,141 @@ def main() -> int:
              *w.requests[0])[0].shape[0]) for w, fus, _ in sessions},
          identical_to_unfused=True)
 
+    # ------------------------------------------- 4b. main path C (answer)
+    cfg = get_arch("paper-cftrag").replace(attn_impl="flash")
+    corpus = worlds[0].corpus
+    queries = corpus.queries[:ANSWERS]
+    counters = {"arena_probe": probe_kernel, "fused_retrieve": fused_kernel,
+                "flash_attention": flash_kernel,
+                "decode_attention": decode_kernel}
+
+    def generator_pipeline(run_cfg):
+        """The answer pipeline on the card with random weights drawn from
+        a seeded generator on the card."""
+        params = lm.init_params(
+            run_cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        return RAGPipeline(corpus, ServeEngine(run_cfg, params,
+                                               cache_size=CACHE,
+                                               batch_size=BATCH),
+                           use_bank=True, device=dev)
+
+    def run_answers(pipe):
+        lat, answers = [], []
+        for q in queries:
+            t0 = time.perf_counter()
+            answers.append(pipe.answer(q, max_new_tokens=NEW_TOKENS))
+            sync()
+            lat.append(time.perf_counter() - t0)
+        return answers, lat
+
+    def forced(pipe, run_cfg, ans):
+        """Row-0 logits (steps, V) when the answer's batch is prefilled
+        and decoded on its own ids (teacher forcing); the prompt's length
+        in the batch, prefill seconds and per-token decode seconds."""
+        eng = pipe.engine
+        toks, _ = eng.pack([Request(pipe.tokenizer.encode(ans.prompt,
+                                                          bos=True),
+                                    NEW_TOKENS)])
+        with torch.inference_mode():
+            sync()
+            t0 = time.perf_counter()
+            logits, state = lm.prefill(
+                run_cfg, eng.params,
+                {"tokens": torch.from_numpy(toks).to(dev)}, eng.cache_size)
+            sync()
+            t_pre, t_dec, rows = time.perf_counter() - t0, [], [logits[0, -1]]
+            for f in ans.output_ids[:-1]:
+                tok = lm.greedy_token(logits)
+                tok[0, 0] = f
+                t0 = time.perf_counter()
+                logits, state = lm.decode_step(run_cfg, eng.params, tok,
+                                               state)
+                sync()
+                t_dec.append(time.perf_counter() - t0)
+                rows.append(logits[0, -1])
+        return torch.stack(rows), toks.shape[1], t_pre, t_dec
+
+    def teacher_forced(pipe, answers):
+        """Kernel path and plain path (attn_impl="reference": the plain
+        attention on both steps) on the kernel path's tokens."""
+        run_cfg = pipe.engine.cfg
+        out = []
+        for a in answers:
+            k_rows, plen, t_pre, t_dec = forced(pipe, run_cfg, a)
+            p_rows = forced(pipe, run_cfg.replace(attn_impl="reference"),
+                            a)[0]
+            check(k_rows.shape == (NEW_TOKENS, cfg.padded_vocab)
+                  and bool(torch.isfinite(k_rows).all()),
+                  f"path C logits {tuple(k_rows.shape)} not finite")
+            check(k_rows.argmax(-1).tolist() == a.output_ids,
+                  "path C: the kernel path's replay does not reproduce "
+                  "its answer's ids")
+            out.append((k_rows, p_rows, plen, t_pre, t_dec))
+        delta = max(float((k - p).abs().max()) for k, p, *_ in out)
+        return out, delta
+
+    pipe_c = generator_pipeline(cfg)
+    pipe_c.answer(corpus.queries[ANSWERS], max_new_tokens=2)   # warm-up
+    sync()
+    for mod in counters.values():
+        mod.LAUNCHES = 0
+    answers, lat_c = run_answers(pipe_c)
+    launches_c = {name: mod.LAUNCHES for name, mod in counters.items()}
+    per_answer = {"arena_probe": 1, "fused_retrieve": 0,
+                  "flash_attention": cfg.n_layers,
+                  "decode_attention": cfg.n_layers * (NEW_TOKENS - 1)}
+    check(launches_c == {k: v * ANSWERS for k, v in per_answer.items()},
+          f"path C launches {launches_c}, want {per_answer} per answer")
+    check(all(len(a.output_ids) == NEW_TOKENS and a.text for a in answers),
+          "path C answers lack ids or text")
+    forced_bf16, delta_bf16 = teacher_forced(pipe_c, answers)
+    check(delta_bf16 <= 0.15, f"path C bf16 logits differ from the plain "
+          f"path by {delta_bf16} > 0.15")
+
+    cfg32 = cfg.replace(dtype="float32")
+    pipe32 = generator_pipeline(cfg32)
+    answers32, _ = run_answers(pipe32)
+    forced_f32, delta_f32 = teacher_forced(pipe32, answers32)
+    flips, steps_equal = [], 0
+    for i, (a, (_, p_rows, *_)) in enumerate(zip(answers32, forced_f32)):
+        top2 = p_rows.topk(2, dim=-1).values
+        for t, want in enumerate(a.output_ids):
+            if int(p_rows[t].argmax()) == want:
+                steps_equal += 1
+                continue
+            gap = float(top2[t, 0] - top2[t, 1])
+            flips.append({"answer": i, "step": t, "plain_top2_gap": gap})
+            check(gap < 2 * delta_f32, f"path C f32: answer {i} step {t} "
+                  f"differs from the plain path with top-2 gap {gap} >= "
+                  f"2 x logit delta {delta_f32}")
+    prefill_lens = [plen for _, _, plen, _, _ in forced_bf16]
+    t_dec = [t for *_, td in forced_bf16 for t in td]
+    emit(phase="path_c", entry="RAGPipeline.answer", arch=cfg.arch_id,
+         attn_impl=cfg.attn_impl, dtype=cfg.dtype,
+         params=lm.param_count(cfg), answers=ANSWERS, new_tokens=NEW_TOKENS,
+         batch_rows=BATCH, cache_size=CACHE,
+         prompt_tokens=[len(pipe_c.tokenizer.encode(a.prompt, bos=True))
+                        for a in answers],
+         prefill_tokens=prefill_lens, launches=launches_c,
+         launches_per_answer={k: v / ANSWERS for k, v in launches_c.items()},
+         latency_ms_p50=statistics.median(lat_c) * 1e3,
+         latency_ms_max=max(lat_c) * 1e3,
+         tokens_per_s_p50=statistics.median(NEW_TOKENS / t for t in lat_c),
+         prefill_ms_p50=statistics.median(
+             t for _, _, _, t, _ in forced_bf16) * 1e3,
+         decode_ms_per_token_p50=statistics.median(t_dec) * 1e3,
+         teacher_forced_steps=NEW_TOKENS * ANSWERS,
+         bf16_max_abs_logit_delta=delta_bf16, bf16_tolerance=0.15,
+         f32_max_abs_logit_delta=delta_f32,
+         f32_steps_ids_equal_plain=steps_equal, f32_flips=flips,
+         first_text=answers[0].text)
+    del pipe32, forced_f32, forced_bf16
+
     # --------------------------------------------- 5. where the time goes
     def profile_requests(serve, n=8):
         """Wall and device-busy ms per request over n requests under
         torch.profiler; device time sums the CUDA kernel events (None when
-        the profiler reports none)."""
+        the profiler reports none).  Also returns every event name."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         serve(0)
@@ -320,14 +537,24 @@ def main() -> int:
                     idle_share=None if dev is None else 1 - dev / wall,
                     top_kernels=[[e.key[:60], getattr(
                         e, "self_device_time_total", 0) / 1e3 / n]
-                        for e in top])
+                        for e in top]), {e.key for e in prof.key_averages()}
 
     prof = {"path_a": profile_requests(
-        lambda i: pipe.retrieve(worlds[0].corpus.queries[i]))}
+        lambda i: pipe.retrieve(worlds[0].corpus.queries[i]))[0]}
     for w, fus, _ in sessions:
         prof[f"path_b_{w.bank.num_trees}"] = profile_requests(
             lambda i, w=w, fus=fus: fus.retrieve(
-                w.requests[i][0].tolist(), w.requests[i][1].tolist()))
+                w.requests[i][0].tolist(), w.requests[i][1].tolist()))[0]
+    prof["path_c"], names = profile_requests(
+        lambda i: pipe_c.answer(queries[i], max_new_tokens=NEW_TOKENS), n=2)
+    kernels_c = [k for k in names if "flash_fwd_kernel" in k
+                 or "decode_kernel" in k]
+    plain_c = sorted(k for k in names if k in PLAIN_ATTENTION_OPS)
+    check(len(kernels_c) >= 2 and not plain_c,
+          f"path C profile: attention kernels {kernels_c}, plain attention "
+          f"ops {plain_c}")
+    prof["path_c"]["attention_kernels"] = sorted(k[:60] for k in kernels_c)
+    prof["path_c"]["plain_attention_ops"] = plain_c
     emit(phase="profile", per_request=prof)
 
     # ------------------------------------------------------ 6. kernel times
@@ -370,11 +597,11 @@ def main() -> int:
                     eager_ms=time_ms(kernel_fn),
                     plain_eager_ms=time_ms(plain_fn))
 
-    def bound(nbytes, ops):
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
-        return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
-                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                    bytes=nbytes, int_ops=ops)
+    def bound(nbytes, ops, rate=INT32_OPS_PER_S, unit="int_ops"):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
+        return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": nbytes, unit: ops}
 
     def probe_cost(w, tid, hh):
         """Times and bound at one request's shape.  Bytes: h/offset/mask
@@ -447,6 +674,65 @@ def main() -> int:
             bound_by=main["bound_by"], library_ms=None,
             eager_ms=main["eager_ms"], plain_eager_ms=main["plain_eager_ms"],
             shape_queries=main["queries"], by_trees=at))
+
+    # attention at path C's shapes: the longest prefill, and the last
+    # decode step of that prompt (its valid prefix), bf16
+    length = max(prefill_lens)
+    n_valid = length + NEW_TOKENS - 1
+    bf16, esz = torch.bfloat16, 2
+    q, k, v = (randn(BATCH, h, length, hd).to(bf16) for h in (hq, hkv, hkv))
+    flash_args = (q, k, v, True)
+    # each input read once, out and lse written once; QK^T and P.V over
+    # the length * (length + 1) / 2 visible pairs, 2 FLOPs per multiply-add
+    flash_bytes = (esz * (2 * BATCH * hq * length * hd
+                          + 2 * BATCH * hkv * length * hd)
+                   + 4 * BATCH * hq * length)
+    flash_flops = 2 * BATCH * hq * hd * length * (length + 1)
+    qd = randn(BATCH, hq, hd).to(bf16)
+    kd, vd = (randn(BATCH, hkv, CACHE, hd).to(bf16) for _ in range(2))
+    cl = torch.full((BATCH,), n_valid, dtype=torch.int32, device=dev)
+    mask = (torch.arange(CACHE, device=dev)[None, :]
+            < cl[:, None])[:, None, None, :]
+    # q, the valid prefix of k and v, cache_len read; out and lse written
+    decode_bytes = (esz * (2 * BATCH * hq * hd
+                           + 2 * BATCH * hkv * n_valid * hd)
+                    + 4 * BATCH * hq + 4 * BATCH)
+    decode_flops = 4 * BATCH * hq * n_valid * hd
+    for name, src, replaces, kernel_fn, plain_fn, library_fn, nbytes, \
+            flops, shape in (
+            ("flash_attention",
+             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:70",
+             lambda: flash_attention(*flash_args),
+             lambda: attention_ref(*flash_args, hd ** -0.5),
+             lambda: F.scaled_dot_product_attention(
+                 q, k, v, is_causal=True, scale=hd ** -0.5, enable_gqa=True),
+             flash_bytes, flash_flops,
+             {"q": list(q.shape), "kv": list(k.shape), "causal": True}),
+            ("decode_attention",
+             "src/repro_torch/kernels/csrc/decode_attention.cu",
+             "src/repro/kernels/decode_attention/kernel.py:63",
+             lambda: decode_attention(qd, kd, vd, cl),
+             lambda: decode_attention_ref(qd, kd, vd, cl),
+             lambda: F.scaled_dot_product_attention(
+                 qd[:, :, None], kd, vd, attn_mask=mask, scale=hd ** -0.5,
+                 enable_gqa=True),
+             decode_bytes, decode_flops,
+             {"q": list(qd.shape), "kv": list(kd.shape),
+              "cache_len": [n_valid] * BATCH})):
+        t = timings(kernel_fn, plain_fn)
+        b = bound(nbytes, flops, FLOPS_PER_S["bfloat16"], "flops")
+        e = att_err[f"{name}/bfloat16"]
+        rows_out.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=launches_c[name],
+            launches_per_request=launches_c[name] / ANSWERS,
+            max_abs_err=e["out"], lse_max_abs_err=e["lse"],
+            dtype="bfloat16", ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+            library_ms=graph_ms(library_fn), eager_ms=t["eager_ms"],
+            plain_eager_ms=t["plain_eager_ms"], bytes=nbytes, flops=flops,
+            shape=shape))
     emit(kernels=rows_out)
     emit(ok=True, device={"platform": "gpu", "kind": gpu, "count": count})
     return 0

@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels for Hopper (``sm_90a``) on the retrieval path.
+"""Hand-written CUDA kernels for Hopper (``sm_90a``): retrieval and the
+generator's attention.
 
 Each kernel lives in its own subpackage with the reference's trio:
   kernel.py — ctypes launch binding of ``csrc/<name>.cu`` and ``LAUNCHES``
@@ -7,6 +8,8 @@ Each kernel lives in its own subpackage with the reference's trio:
 
 ``_build`` compiles the sources with ``nvcc`` at first use.
 """
-from . import cuckoo_lookup, fused_retrieve
+from . import (cuckoo_lookup, decode_attention, flash_attention,
+               fused_retrieve)
 
-__all__ = ["cuckoo_lookup", "fused_retrieve"]
+__all__ = ["cuckoo_lookup", "decode_attention", "flash_attention",
+           "fused_retrieve"]

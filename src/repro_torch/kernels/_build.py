@@ -24,7 +24,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("arena_probe", "fused_retrieve")
+SOURCES = ("arena_probe", "fused_retrieve", "flash_attention",
+           "decode_attention")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -93,6 +94,14 @@ def load(name: str) -> ctypes.CDLL:
             lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
         return lib
+
+
+def contiguous16(t: "torch.Tensor") -> "torch.Tensor":
+    """``t`` as the launchers take it: contiguous, with the 16-byte base
+    alignment that their vector loads need (a view at an odd offset is
+    copied)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

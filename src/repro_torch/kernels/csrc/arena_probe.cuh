@@ -9,6 +9,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace repro {
 
 constexpr int kNull = -1;
@@ -81,9 +83,3 @@ __device__ __forceinline__ Probe probe_arena(
 }
 
 }  // namespace repro
-
-// Every launcher returns cudaGetLastError() as an int; the wrapper turns a
-// non-zero code into an exception with this text.
-extern "C" const char* repro_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}

@@ -1,0 +1,5 @@
+from . import kernel
+from .ops import flash_attention
+from .ref import attention_ref
+
+__all__ = ["kernel", "flash_attention", "attention_ref"]

@@ -1,5 +1,7 @@
-"""Serving: the retrieval session and the bank-mode RAG pipeline."""
-from .engine import RetrievalSession
+"""Serving: the retrieval session, the generation engine and the
+bank-mode RAG pipeline."""
+from .engine import Request, RetrievalSession, ServeEngine, kv_cache_bytes
 from .rag import RAGAnswer, RAGPipeline
 
-__all__ = ["RetrievalSession", "RAGAnswer", "RAGPipeline"]
+__all__ = ["Request", "RetrievalSession", "ServeEngine", "kv_cache_bytes",
+           "RAGAnswer", "RAGPipeline"]

@@ -1,8 +1,11 @@
-"""End-to-end CFT-RAG retrieval pipeline (paper Figure 1), bank mode.
+"""End-to-end CFT-RAG serving pipeline (paper Figure 1), bank mode.
 
 query -> entity recognition (NER stub) -> per-tree cuckoo-filter probe on
 the card (the CUDA arena probe) -> CSR location window -> hierarchical
-context (Algorithm 3) -> prompt assembly ``[system | context | query]``.
+context (Algorithm 3) -> prompt assembly ``[system | context | query]``
+-> generator prefill + greedy decode (:class:`ServeEngine`, through the
+flash-attention and decode-attention kernels when its config asks for
+``attn_impl="flash"``).
 
 Only the filter-bank device path is ported.  The reference's other modes
 raise ``NotImplementedError`` naming the ROADMAP item that ports them.
@@ -21,8 +24,9 @@ from ..core.trag import CFTDeviceState, retrieve_device
 from ..core.tree import build_forest
 from ..data.datasets import SyntheticCorpus
 from ..data.ner import build_gazetteer, recognize_entities
+from ..data.tokenizer import HashTokenizer
 from ..kernels.cuckoo_lookup.ops import cuckoo_lookup_arena_auto
-from .engine import RetrievalSession
+from .engine import Request, RetrievalSession, ServeEngine
 
 SYSTEM_PROMPT = ("You are an assistant answering questions about an "
                  "organization using its entity hierarchy.")
@@ -34,6 +38,8 @@ class RAGAnswer:
     entities: List[str]
     context: str
     prompt: str
+    output_ids: Optional[List[int]] = None
+    text: Optional[str] = None
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -43,18 +49,19 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 class RAGPipeline:
-    """Bank-mode retrieval pipeline over a synthetic corpus.
+    """Bank-mode pipeline over a synthetic corpus, with an optional
+    generator ``engine`` for :meth:`answer`.
 
     ``device=None`` puts the filter bank's device state on the card (and
-    raises without one); ``device="cpu"`` runs the plain torch path.
+    raises without one); ``device="cpu"`` runs the plain torch path.  The
+    engine computes on the device of its own parameters.
     """
 
-    def __init__(self, corpus: SyntheticCorpus, engine=None, *,
+    def __init__(self, corpus: SyntheticCorpus,
+                 engine: Optional[ServeEngine] = None, *,
                  use_bank: bool = False, mesh=None,
                  snapshot_dir: Optional[str] = None, tenants=None,
                  device=None):
-        if engine is not None:
-            raise _not_ported("engine=<generator>", "8")
         if not use_bank:
             raise _not_ported("use_bank=False: host CFTRAG / from_index "
                               "device path", "4")
@@ -65,6 +72,8 @@ class RAGPipeline:
         if tenants is not None:
             raise _not_ported("tenants=...", "7")
         self.corpus = corpus
+        self.engine = engine
+        self.tokenizer = HashTokenizer(engine.cfg.vocab if engine else 64000)
         self.forest = build_forest(corpus.trees)
         self.gazetteer = build_gazetteer(self.forest.entity_names)
         self.bank = build_bank(self.forest)
@@ -152,3 +161,22 @@ class RAGPipeline:
                 lines.append(f"The downward hierarchical relationship of {e} "
                              f"are: {', '.join(dict.fromkeys(downs))}.")
         return "\n".join(lines)
+
+    # ----------------------------------------------------------- generate
+    def answer(self, query: str, max_new_tokens: int = 16) -> RAGAnswer:
+        """Retrieve, build the prompt, and generate greedily with the
+        engine; fills ``output_ids`` and ``text`` (without an engine,
+        returns the retrieval alone)."""
+        ans = self.retrieve(query)
+        if self.engine is None:
+            return ans
+        ids = self.tokenizer.encode(ans.prompt, bos=True)
+        req = Request(prompt_ids=ids, max_new_tokens=max_new_tokens)
+        self.engine.serve([req])
+        ans.output_ids = req.out_ids
+        ans.text = self.tokenizer.decode(req.out_ids)
+        # The reference ends with self.maintain(): with no pending deltas it
+        # only harvests temperature and resorts hot slots, which changes no
+        # later answer's context, prompt or ids.  Maintenance is ROADMAP
+        # Queue 1 item 6; until it is ported, answer() ends here.
+        return ans

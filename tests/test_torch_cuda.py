@@ -1,7 +1,11 @@
 """Card-only tests of the port's CUDA kernels: each kernel against its
-plain torch version on the same CUDA tensors, exact integer equality with
-dtypes (the probe's bucket/slot on hits).  Skips without a CUDA device;
-on the card run
+plain torch version on the same CUDA tensors — exact integer equality
+with dtypes for the retrieval kernels (the probe's bucket/slot on hits);
+for the attention kernels f32 out and lse within 1e-5 (another summation
+order in f32), bf16 out within 2^-6 |out| + 1e-6 elementwise (two bf16
+ulps: both round an f32 result) and lse within 1e-5 — and one
+``RAGPipeline.answer`` on the card against the same pipeline on the CPU.
+Skips without a CUDA device; on the card run
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -10,14 +14,24 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_arch
 from repro_torch.core import (CFTDeviceState, build_bank, build_forest,
                               hashing, retrieve_device)
+from repro_torch.data import hospital_corpus
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_ref)
+from repro_torch.kernels.decode_attention import kernel as decode_kernel
+from repro_torch.kernels.flash_attention import attention_ref, \
+    flash_attention
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.cuckoo_lookup import (cuckoo_lookup_arena,
                                                cuckoo_lookup_arena_ref)
 from repro_torch.kernels.cuckoo_lookup import kernel as probe_kernel
 from repro_torch.kernels.fused_retrieve import (fused_retrieve_ragged,
                                                 fused_retrieve_ragged_ref)
 from repro_torch.kernels.fused_retrieve import kernel as fused_kernel
+from repro_torch.models import lm
+from repro_torch.serving import RAGPipeline, ServeEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -153,3 +167,86 @@ def test_geometry_and_device_errors(cuda_device):
     with pytest.raises(ValueError):
         cuckoo_lookup_arena(st.fingerprints, st.heads, tid.cpu(),
                             tid.cpu(), hh)
+
+
+def _close_attention(got, want, dtype):
+    """Out: f32 within 1e-5; bf16 within 2^-6 |want| + 1e-6 elementwise."""
+    g, w = got.float(), want.float()
+    if dtype == torch.float32:
+        assert float((g - w).abs().max()) <= 1e-5
+    else:
+        assert bool(((g - w).abs() <= w.abs() * 2 ** -6 + 1e-6).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,lq", [((4, 2, 32), 1), ((4, 2, 32), 127),
+                                      ((14, 2, 64), 200), ((4, 1, 128), 64)])
+def test_flash_matches_plain(cuda_device, dtype, heads, lq):
+    hq, hkv, d = heads
+    g = torch.Generator(device=cuda_device).manual_seed(lq)
+    q = torch.randn(2, hq, lq, d, generator=g, device=cuda_device)
+    kv = [torch.randn(2, hkv, lq, d, generator=g, device=cuda_device)
+          for _ in range(2)]
+    q, k, v = (t.to(dtype) for t in (q, *kv))
+    before = flash_kernel.LAUNCHES
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    assert flash_kernel.LAUNCHES == before + 1
+    want, want_lse = attention_ref(q, k, v, causal=True, scale=d ** -0.5,
+                                   return_lse=True)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    _close_attention(out, want, dtype)
+    assert float((lse - want_lse).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,lens", [((4, 2, 32), (1, 64, 65, 100)),
+                                        ((14, 2, 64), (255, 256, 300, 512))])
+def test_decode_matches_plain(cuda_device, dtype, heads, lens):
+    hq, hkv, d = heads
+    s = max(lens)
+    g = torch.Generator(device=cuda_device).manual_seed(s)
+    q = torch.randn(len(lens), hq, d, generator=g, device=cuda_device)
+    kv = [torch.randn(len(lens), hkv, s, d, generator=g, device=cuda_device)
+          for _ in range(2)]
+    q, k, v = (t.to(dtype) for t in (q, *kv))
+    cl = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    before = decode_kernel.LAUNCHES
+    out, lse = decode_attention(q, k, v, cl, return_lse=True)
+    assert decode_kernel.LAUNCHES == before + 1
+    want, want_lse = decode_attention_ref(q, k, v, cl, return_lse=True)
+    torch.cuda.synchronize()
+    _close_attention(out, want, dtype)
+    assert float((lse - want_lse).abs().max()) <= 1e-5
+
+
+def test_attention_kernels_raise_instead_of_falling_back(cuda_device):
+    q = torch.zeros(1, 4, 8, 48, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, q[:, :2], q[:, :2])
+    h = torch.zeros(1, 4, 8, 32, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention(h, h[:, :2], h[:, :2])
+    with pytest.raises(ValueError):
+        decode_attention(q[:, :, 0].float(), q.cpu(), q.cpu(),
+                         torch.ones(1, dtype=torch.int32))
+
+
+def test_answer_on_card_equals_cpu(cuda_device):
+    """One answer on the card through both attention kernels equals the
+    same pipeline with the same weights on the CPU (f32 smoke config)."""
+    cfg = get_arch("paper-cftrag").smoke().replace(attn_impl="flash")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    corpus = hospital_corpus(num_trees=6, num_queries=2)
+    card = RAGPipeline(corpus, ServeEngine(cfg, lm.init_params(
+        cfg, torch.Generator().manual_seed(0), cuda_device)),
+        use_bank=True, device=cuda_device)
+    cpu = RAGPipeline(corpus, ServeEngine(cfg, params), use_bank=True,
+                      device="cpu")
+    flash0, dec0 = flash_kernel.LAUNCHES, decode_kernel.LAUNCHES
+    got = card.answer(corpus.queries[0], max_new_tokens=5)
+    assert flash_kernel.LAUNCHES - flash0 == cfg.n_layers
+    assert decode_kernel.LAUNCHES - dec0 == cfg.n_layers * 4
+    want = cpu.answer(corpus.queries[0], max_new_tokens=5)
+    assert got.prompt == want.prompt
+    assert got.output_ids == want.output_ids

@@ -15,9 +15,11 @@ from repro.core import hashing as ref_hashing
 from repro.data.datasets import hospital_corpus as ref_hospital
 from repro.serving.engine import RetrievalSession as RefSession
 from repro.serving.rag import RAGPipeline as RefPipeline
+from repro_torch.configs import get_arch
 from repro_torch.core import CFTDeviceState, build_bank, build_forest
 from repro_torch.core.trag import STATE_FIELDS
 from repro_torch.data import hospital_corpus
+from repro_torch.models import lm
 from repro_torch.serving import RAGPipeline, RetrievalSession
 
 FIELDS = ("hit", "locations", "up", "down", "temperature")
@@ -155,8 +157,9 @@ def test_unported_modes_raise(kw, item):
     corpus = hospital_corpus(num_trees=2, num_queries=1)
     with pytest.raises(NotImplementedError, match=item):
         RAGPipeline(corpus, None, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        RAGPipeline(corpus, object(), use_bank=True, device="cpu")
+    moe = get_arch("paper-cftrag").smoke().replace(family="moe")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        lm.init_params(moe, torch.Generator(), "cpu")
 
 
 def test_state_roundtrip_through_reference_arrays():
