@@ -16,7 +16,7 @@ ARCH_REGISTRY: Dict[str, "ModelConfig"] = {}
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str                 # dense | moe | mamba_hybrid | rwkv | encdec | vlm
+    family: str                 # only "dense" is ported (item 10)
     n_layers: int
     d_model: int
     n_heads: int
@@ -27,32 +27,10 @@ class ModelConfig:
     qkv_bias: bool = False
     rope_theta: float = 1_000_000.0
     tie_embeddings: bool = False
-    # --- MoE ---
-    num_experts: int = 0
-    top_k: int = 0
-    moe_every: int = 1
-    shared_expert: bool = False
-    capacity_factor: float = 1.25
-    # --- SSM / hybrid ---
-    ssm_state: int = 0
-    ssm_conv: int = 4
-    ssm_head_dim: int = 64
-    ssm_expand: int = 2
-    attn_every: int = 0
-    # --- encoder-decoder ---
-    enc_layers: int = 0
-    dec_layers: int = 0
-    # --- modality frontend stubs ---
-    frontend: str = "none"
-    num_patches: int = 0
-    frontend_dim: int = 0
     # --- runtime ---
     dtype: str = "bfloat16"
     attn_impl: str = "blocked"  # reference | blocked | flash
     attn_chunk: int = 1024      # blocked-attention kv tile
-    scan_layers: bool = True
-    remat: str = "full"
-    sub_quadratic: bool = False
 
     @property
     def resolved_head_dim(self) -> int:
@@ -69,7 +47,7 @@ class ModelConfig:
 
     def smoke(self) -> "ModelConfig":
         """Reduced same-family config for CPU tests (the reference's)."""
-        kw = dict(
+        return self.replace(
             n_layers=min(self.n_layers, 2),
             d_model=128,
             n_heads=4,
@@ -79,19 +57,7 @@ class ModelConfig:
             d_ff=256,
             vocab=512,
             dtype="float32",
-            remat="none",
         )
-        if self.num_experts:
-            kw.update(num_experts=4, top_k=min(self.top_k, 2), d_ff=64)
-        if self.ssm_state:
-            kw.update(ssm_state=16, ssm_head_dim=16)
-        if self.attn_every:
-            kw.update(attn_every=2, n_layers=4)
-        if self.enc_layers:
-            kw.update(enc_layers=2, dec_layers=2)
-        if self.num_patches:
-            kw.update(num_patches=8)
-        return self.replace(**kw)
 
 
 def register(cfg: ModelConfig) -> ModelConfig:

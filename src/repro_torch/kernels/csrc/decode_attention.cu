@@ -173,7 +173,7 @@ int launch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. D: 32, 64 or 128. Tensors contiguous,
+// dtype: 0 float32, 1 bfloat16. D: 32 or 64. Tensors contiguous,
 // q (B, Hq, D), k/v (B, Hkv, S, D), cache_len int32 (B,), out like q,
 // lse (B, Hq).
 extern "C" int decode_attention_launch(
@@ -189,10 +189,8 @@ extern "C" int decode_attention_launch(
                           scale, s);
   REPRO_DECODE_CASE(float, 0, 32)
   REPRO_DECODE_CASE(float, 0, 64)
-  REPRO_DECODE_CASE(float, 0, 128)
   REPRO_DECODE_CASE(__nv_bfloat16, 1, 32)
   REPRO_DECODE_CASE(__nv_bfloat16, 1, 64)
-  REPRO_DECODE_CASE(__nv_bfloat16, 1, 128)
 #undef REPRO_DECODE_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -235,7 +235,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. D: 32, 64 or 128. Tensors contiguous,
+// dtype: 0 float32, 1 bfloat16. D: 32 or 64. Tensors contiguous,
 // q (B, Hq, Lq, D), k/v (B, Hkv, Lkv, D), out like q, lse (B, Hq, Lq).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, void* lse,
@@ -250,10 +250,8 @@ extern "C" int flash_attention_launch(
                           scale, s);
   REPRO_FLASH_CASE(float, 0, 32)
   REPRO_FLASH_CASE(float, 0, 64)
-  REPRO_FLASH_CASE(float, 0, 128)
   REPRO_FLASH_CASE(__nv_bfloat16, 1, 32)
   REPRO_FLASH_CASE(__nv_bfloat16, 1, 64)
-  REPRO_FLASH_CASE(__nv_bfloat16, 1, 128)
 #undef REPRO_FLASH_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
