@@ -18,6 +18,13 @@ Phases, each reported on its own JSON line:
    batch 4, prefill lengths 1-512 and per-row cache lengths 1-512, in f32
    (out and lse within 1e-5) and bf16 (out within 2^-6 |out| + 1e-6
    elementwise, lse within 1e-5);
+   flash_bwd_parity: the flash backward kernel against its plain version
+   at heads 14/2/64 and 4/2/32, batch 2, lengths 1-4,096 and one
+   Lq < Lkv case, f32 (dq, dk, dv within 1e-4 of the gradient's scale,
+   its largest |entry| or 1) and bf16 (within 2^-6 |grad| + 1e-4 of that
+   scale, elementwise), the forward at the same shapes as in
+   attention_parity, and one f32 case through autograd against autograd
+   through the plain forward;
 3. path A: ``RAGPipeline`` (bank mode, on the card) answers the corpus's
    64 queries twice — 3,000 (tree, hash) queries each — through the
    arena-probe kernel; contexts must equal a CPU pipeline's;
@@ -32,14 +39,24 @@ Phases, each reported on its own JSON line:
    logits within 0.15, and in a second f32 run logits within 1e-3 and
    greedy ids equal except at listed steps whose plain top-2 gap is below
    twice the measured logit delta;
-5. profile: wall and device-busy time per request of the three paths
-   under torch.profiler, with the top kernels; path C must show both
-   attention kernels and no plain attention op;
+   path D: ``TrainLoop`` trains ``paper-cftrag`` at full width in bf16
+   (random weights from a seeded generator, ``attn_impl="flash"``) for 8
+   steps of 2 x 4,096 tokens packed from the 600-tree corpus, through
+   the flash forward and backward kernels (24 launches of each per
+   step); losses finite and falling; then one f32 step at 8 x 1,024
+   tokens on the kernel path against the plain path (autograd through
+   materialised scores): loss within 1e-5 relative, grad norm within
+   1e-4 relative, every gradient leaf within 1e-3 of its largest entry;
+5. profile: wall and device-busy time per request (per step for path D)
+   of the four paths under torch.profiler, with the top kernels; paths C
+   and D must show their attention kernels and no plain attention op;
 6. kernels: per kernel its launches on the main path; kernel and plain
-   device time per call (CUDA-graph replay, CUDA events) and eager time
-   (back-to-back launches, host overhead included); the library call's
-   time where one computes the same function (SDPA for attention); its
-   bound from this run's bytes and operations.
+   device time per call (CUDA-graph replay, CUDA events; at path D's
+   training shape, where a call takes milliseconds, back-to-back calls)
+   and eager time (back-to-back launches, host overhead included); the
+   library call's time where one computes the same function (SDPA for
+   attention, its autograd backward for the backward); its bound from
+   this run's bytes and operations.
 
 Each path's launch counters are set to 0 just before it and read just
 after.  The last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -52,6 +69,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -75,9 +93,21 @@ ANSWERS, NEW_TOKENS, CACHE, BATCH = 8, 16, 512, 4
 # path C's teacher-forced logit limits, kernel path against plain path:
 # bf16 rounding of the activations; f32 summation order only
 BF16_LOGIT_TOL, F32_LOGIT_TOL = 0.15, 1e-3
-# plain attention ops that must not run on path C
+# plain attention ops that must not run on paths C and D
 PLAIN_ATTENTION_OPS = ("aten::softmax", "aten::_softmax", "aten::bmm",
                        "aten::einsum")
+# path D: the training sequence length (train_4k), batch rows and steps;
+# the f32 comparison step's shape (the same 8,192 tokens a step)
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4096, 2, 8
+CMP_SEQ, CMP_BATCH = 1024, 8
+# backward parity, kernel against plain: f32 summation order only, within
+# 1e-4 of the gradient's scale, its largest |entry| or 1 (unit-normal
+# inputs; at length 1 dq is zero up to rounding); bf16 adds the two
+# roundings of an f32 value
+BWD_TOL = 1e-4
+# path D's f32 step, kernel path against the plain path (summation order
+# across 24 layers)
+F32_LOSS_RTOL, F32_NORM_RTOL, F32_GRAD_TOL = 1e-5, 1e-4, 1e-3
 
 
 def emit(**fields) -> None:
@@ -106,8 +136,9 @@ def main() -> int:
     from repro_torch.core import (CFTDeviceState, build_bank, build_forest,
                                   hashing)
     from repro_torch.core.trag import STATE_FIELDS
-    from repro_torch.data import build_gazetteer, hospital_corpus, \
-        recognize_entities
+    from repro_torch.data import (HashTokenizer, PackedBatches,
+                                  TextDataset, build_gazetteer,
+                                  hospital_corpus, recognize_entities)
     from repro_torch.kernels import _build
     from repro_torch.kernels.cuckoo_lookup import kernel as probe_kernel
     from repro_torch.kernels.cuckoo_lookup import (cuckoo_lookup_arena,
@@ -116,14 +147,18 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_ref)
     from repro_torch.kernels.decode_attention import kernel as decode_kernel
-    from repro_torch.kernels.flash_attention import (attention_ref,
-                                                     flash_attention)
+    from repro_torch.kernels.flash_attention import (
+        attention_ref, flash_attention, flash_attention_bwd_ref)
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.fused_retrieve import (fused_retrieve_ragged,
                                                     fused_retrieve_ragged_ref)
     from repro_torch.models import lm
+    from repro_torch.models.transformer import tree_leaves
     from repro_torch.serving import (RAGPipeline, Request, RetrievalSession,
                                      ServeEngine)
+    from repro_torch.training import (AdamWConfig, LoopConfig, TrainLoop,
+                                      adamw_init, global_norm, latest_step,
+                                      loss_and_grads, make_train_step)
 
     dev = torch.device("cuda")
     sizes = (600, 6000)
@@ -312,6 +347,70 @@ def main() -> int:
                                  "lse": 1e-5}},
          max_abs_err=att_err)
 
+    # --------------------------------------------- 2c. flash backward parity
+    bwd_err = {}
+
+    def bwd_check(key, dtype, got, want):
+        """Max errors of (dq, dk, dv) against the plain version's, absolute
+        and over the gradient's scale; raises past the tolerance."""
+        e = bwd_err.setdefault(key, {"cases": 0})
+        e["cases"] += 1
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            check(g.dtype == w.dtype and g.shape == w.shape,
+                  f"{key} {name}: {g.dtype}{tuple(g.shape)} vs {w.dtype}"
+                  f"{tuple(w.shape)}")
+            g, w = g.float(), w.float()
+            d, top = (g - w).abs(), max(float(w.abs().max()), 1.0)
+            if dtype == torch.float32:
+                ok = float(d.max()) <= BWD_TOL * top
+            else:
+                ok = bool((d <= w.abs() * 2 ** -6 + BWD_TOL * top).all())
+            e[name] = max(e.get(name, 0.0), float(d.max()))
+            e[f"{name}_of_scale"] = max(e.get(f"{name}_of_scale", 0.0),
+                                        float(d.max()) / top)
+            check(ok, f"{key} {name}: max error {float(d.max())} (gradient "
+                  f"scale {top}) past the tolerance")
+
+    bwd_lengths = (1, 63, 64, 200, 1024, TRAIN_SEQ)
+    bwd_cases = [(heads, n, n) for heads in ((hq, hkv, hd), (4, 2, 32))
+                 for n in bwd_lengths] + [((hq, hkv, hd), 200, 1000)]
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        for (h, hk, d), lq, lkv in bwd_cases:
+            q, do = (randn(TRAIN_BATCH, h, lq, d).to(dtype) for _ in range(2))
+            k, v = (randn(TRAIN_BATCH, hk, lkv, d).to(dtype)
+                    for _ in range(2))
+            out, lse = flash_attention(q, k, v, True, return_lse=True)
+            attn_check(f"flash_attention/{name}", dtype, (out, lse),
+                       attention_ref(q, k, v, True, d ** -0.5,
+                                     return_lse=True))
+            bwd_check(f"flash_attention_bwd/{name}", dtype,
+                      flash_kernel.flash_attention_bwd_cuda(
+                          q, k, v, out, lse, do, True, d ** -0.5),
+                      flash_attention_bwd_ref(q, k, v, out, lse, do, True,
+                                              d ** -0.5))
+    # through autograd: the wrapper's autograd.Function against autograd
+    # through the plain forward, f32
+    q, do = (randn(TRAIN_BATCH, hq, 1024, hd) for _ in range(2))
+    k, v = (randn(TRAIN_BATCH, hkv, 1024, hd) for _ in range(2))
+    for t in (q, k, v):
+        t.requires_grad_()
+    bwd_check("autograd/float32", torch.float32,
+              torch.autograd.grad(flash_attention(q, k, v, True), (q, k, v),
+                                  do),
+              torch.autograd.grad(attention_ref(q, k, v, True, hd ** -0.5),
+                                  (q, k, v), do))
+    del q, k, v, do, out, lse
+    torch.cuda.synchronize()
+    emit(phase="flash_bwd_parity", batch=TRAIN_BATCH,
+         cases=[[list(hs), lq, lkv] for hs, lq, lkv in bwd_cases],
+         tolerance={"float32": f"{BWD_TOL} x max(max |grad|, 1)",
+                    "bfloat16": f"2^-6 |grad| + {BWD_TOL} x max(max |grad|,"
+                                f" 1) elementwise"},
+         max_abs_err=bwd_err,
+         forward_max_abs_err={k: att_err[k] for k in att_err
+                              if k.startswith("flash_attention/")})
+
     # ------------------------------------------------- 3. main path A (probe)
     w = worlds[0]
     pipe = RAGPipeline(w.corpus, None, use_bank=True, device=dev)
@@ -392,6 +491,15 @@ def main() -> int:
                 "flash_attention": flash_kernel,
                 "decode_attention": decode_kernel}
 
+    def zero_counts():
+        for mod in counters.values():
+            mod.LAUNCHES = 0
+        flash_kernel.BWD_LAUNCHES = 0
+
+    def read_counts():
+        return dict({name: mod.LAUNCHES for name, mod in counters.items()},
+                    flash_attention_bwd=flash_kernel.BWD_LAUNCHES)
+
     def generator_pipeline(run_cfg):
         """The answer pipeline on the card with random weights drawn from
         a seeded generator on the card."""
@@ -460,13 +568,13 @@ def main() -> int:
     pipe_c = generator_pipeline(cfg)
     pipe_c.answer(corpus.queries[ANSWERS], max_new_tokens=2)   # warm-up
     sync()
-    for mod in counters.values():
-        mod.LAUNCHES = 0
+    zero_counts()
     answers, lat_c = run_answers(pipe_c)
-    launches_c = {name: mod.LAUNCHES for name, mod in counters.items()}
+    launches_c = read_counts()
     per_answer = {"arena_probe": 1, "fused_retrieve": 0,
                   "flash_attention": cfg.n_layers,
-                  "decode_attention": cfg.n_layers * (NEW_TOKENS - 1)}
+                  "decode_attention": cfg.n_layers * (NEW_TOKENS - 1),
+                  "flash_attention_bwd": 0}
     check(launches_c == {k: v * ANSWERS for k, v in per_answer.items()},
           f"path C launches {launches_c}, want {per_answer} per answer")
     check(all(len(a.output_ids) == NEW_TOKENS and a.text for a in answers),
@@ -516,7 +624,6 @@ def main() -> int:
          first_text=answers[0].text)
     del pipe32, forced_f32, forced_bf16
 
-    # --------------------------------------------- 5. where the time goes
     def profile_requests(serve, n=8):
         """Wall and device-busy ms per request over n requests under
         torch.profiler; device time sums the CUDA kernel events (None when
@@ -544,6 +651,110 @@ def main() -> int:
                         e, "self_device_time_total", 0) / 1e3 / n]
                         for e in top]), {e.key for e in prof.key_averages()}
 
+    # ------------------------------------------- 4c. main path D (training)
+    def packed(batch, seq):
+        return PackedBatches(TextDataset(corpus.documents,
+                                         HashTokenizer(cfg.vocab)),
+                             batch_size=batch, seq_len=seq, prefetch=False)
+
+    def on_card(batch):
+        return {k: torch.from_numpy(a).to(dev) for k, a in batch.items()}
+
+    def card_batches(pb):
+        while True:
+            yield on_card(pb.next_batch())
+
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+    train_step = make_train_step(cfg, opt_cfg)
+    pb = packed(TRAIN_BATCH, TRAIN_SEQ)
+    params_d = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                              dev)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        loop = TrainLoop(
+            LoopConfig(total_steps=TRAIN_STEPS, ckpt_dir=ckpt_dir,
+                       ckpt_every=TRAIN_STEPS + 1, log_every=1),
+            train_step, params_d, adamw_init(params_d), card_batches(pb),
+            pipeline=pb, log=lambda m: print(m, file=sys.stderr, flush=True))
+        loop.run()
+        launches_d = read_counts()
+        saved_step = latest_step(ckpt_dir)
+    peak_d = torch.cuda.max_memory_allocated()
+    per_step = {k: v / TRAIN_STEPS for k, v in launches_d.items()}
+    check(per_step == {"arena_probe": 0, "fused_retrieve": 0,
+                       "flash_attention": cfg.n_layers,
+                       "decode_attention": 0,
+                       "flash_attention_bwd": cfg.n_layers},
+          f"path D launches {launches_d} over {TRAIN_STEPS} steps")
+    losses = loop.losses
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses))
+          and losses[-1] < losses[0], f"path D losses {losses}")
+    check(saved_step == TRAIN_STEPS, f"path D checkpoint {saved_step}")
+    train_tokens = TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ
+    emit(phase="path_d", entry="TrainLoop.run(make_train_step)",
+         arch=cfg.arch_id, attn_impl=cfg.attn_impl, dtype=cfg.dtype,
+         params=lm.param_count(cfg), steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+         seq=TRAIN_SEQ, microbatches=1, tokens=train_tokens,
+         launches=launches_d, launches_per_step=per_step, losses=losses,
+         step_ms=[t * 1e3 for t in loop.step_times],
+         step_ms_p50=statistics.median(loop.step_times) * 1e3,
+         tokens_per_s=train_tokens / sum(loop.step_times),
+         peak_memory_bytes=peak_d, checkpoint_step=saved_step)
+
+    # one more step under the profiler (after a warm-up step)
+    prof_d, names = profile_requests(
+        lambda i: train_step(loop.params, loop.opt_state,
+                             on_card(pb.next_batch())), n=1)
+    wanted_d = ("flash_fwd_kernel", "dq_kernel", "dkv_kernel")
+    kernels_d = sorted(k[:60] for k in names
+                       if any(n in k for n in wanted_d))
+    plain_d = sorted(k for k in names if k in PLAIN_ATTENTION_OPS)
+    check(all(any(n in k for k in kernels_d) for n in wanted_d)
+          and not plain_d,
+          f"path D profile: attention kernels {kernels_d}, plain attention "
+          f"ops {plain_d}")
+    prof_d.update(attention_kernels=kernels_d, plain_attention_ops=plain_d)
+    del loop, params_d, train_step
+    torch.cuda.empty_cache()
+
+    # the f32 step's gradients, kernel path against the plain path
+    cfg32 = cfg.replace(dtype="float32")
+    params32 = lm.init_params(
+        cfg32, torch.Generator(device=dev).manual_seed(0), dev)
+    cmp_batch = on_card(packed(CMP_BATCH, CMP_SEQ).next_batch())
+    f32 = {}
+    for impl in ("flash", "reference"):
+        sync()
+        t0 = time.perf_counter()
+        loss, _, grads = loss_and_grads(cfg32.replace(attn_impl=impl),
+                                        params32, cmp_batch)
+        f32[impl] = (float(loss), float(global_norm(grads)), grads,
+                     (time.perf_counter() - t0) * 1e3)
+    (k_loss, k_norm, k_grads, k_ms), (p_loss, p_norm, p_grads, p_ms) = \
+        f32["flash"], f32["reference"]
+    grad_err = max(float((a - b).abs().max() / b.abs().max().clamp_min(
+        1e-30)) for a, b in zip(tree_leaves(k_grads), tree_leaves(p_grads)))
+    loss_err, norm_err = abs(k_loss - p_loss) / abs(p_loss), \
+        abs(k_norm - p_norm) / p_norm
+    check(loss_err <= F32_LOSS_RTOL and norm_err <= F32_NORM_RTOL
+          and grad_err <= F32_GRAD_TOL,
+          f"path D f32 step: loss {loss_err}, grad norm {norm_err}, "
+          f"gradients {grad_err} past {F32_LOSS_RTOL}, {F32_NORM_RTOL}, "
+          f"{F32_GRAD_TOL}")
+    emit(phase="path_d_f32", batch=CMP_BATCH, seq=CMP_SEQ,
+         loss={"kernel": k_loss, "plain": p_loss, "rel_err": loss_err,
+               "tolerance": F32_LOSS_RTOL},
+         grad_norm={"kernel": k_norm, "plain": p_norm, "rel_err": norm_err,
+                    "tolerance": F32_NORM_RTOL},
+         grad_leaves=len(tree_leaves(k_grads)),
+         grad_max_err_of_leaf_max=grad_err, grad_tolerance=F32_GRAD_TOL,
+         step_ms={"kernel": k_ms, "plain": p_ms})
+    del params32, f32, k_grads, p_grads, grads
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------- 5. where the time goes
     prof = {"path_a": profile_requests(
         lambda i: pipe.retrieve(worlds[0].corpus.queries[i]))[0]}
     for w, fus, _ in sessions:
@@ -560,6 +771,7 @@ def main() -> int:
           f"ops {plain_c}")
     prof["path_c"]["attention_kernels"] = sorted(k[:60] for k in kernels_c)
     prof["path_c"]["plain_attention_ops"] = plain_c
+    prof["path_d_step"] = prof_d
     emit(phase="profile", per_request=prof)
 
     # ------------------------------------------------------ 6. kernel times
@@ -678,7 +890,8 @@ def main() -> int:
             plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
             bound_by=main["bound_by"], library_ms=None,
             eager_ms=main["eager_ms"], plain_eager_ms=main["plain_eager_ms"],
-            shape_queries=main["queries"], by_trees=at))
+            shape_queries=main["queries"], by_trees=at,
+            path="A" if name == "arena_probe" else "B"))
 
     # attention at path C's shapes: the longest prefill, and the last
     # decode step of that prompt (its valid prefix), bf16
@@ -737,7 +950,65 @@ def main() -> int:
             bound_ms=b["bound_ms"], bound_by=b["bound_by"],
             library_ms=graph_ms(library_fn), eager_ms=t["eager_ms"],
             plain_eager_ms=t["plain_eager_ms"], bytes=nbytes, flops=flops,
-            shape=shape))
+            shape=shape, path="C"))
+    del q, k, v, qd, kd, vd
+
+    # flash attention at path D's training shape, forward and backward,
+    # bf16. A call takes milliseconds, so times are back-to-back calls
+    # (host overhead negligible) rather than CUDA-graph replay; SDPA gets
+    # k and v repeated to the query heads beforehand, so that its fused
+    # backends (and not its GQA fallback) are timed.
+    b, n = TRAIN_BATCH, TRAIN_SEQ
+    q, do = (randn(b, hq, n, hd).to(bf16) for _ in range(2))
+    k, v = (randn(b, hkv, n, hd).to(bf16) for _ in range(2))
+    out, lse = flash_attention(q, k, v, True, return_lse=True)
+    scale = hd ** -0.5
+    kr, vr = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, kr, vr))
+    out_s = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                           scale=scale)
+    # q, k, v (and out, do, lse) read once; outputs written once
+    q_bytes, kv_bytes = esz * b * hq * n * hd, esz * b * hkv * n * hd
+    lse_bytes = 4 * b * hq * n
+    pairs = b * hq * n * (n + 1) // 2          # visible (query, key) pairs
+    train_rows = (
+        ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention/kernel.py:70",
+         lambda: flash_attention(q, k, v, True),
+         lambda: attention_ref(q, k, v, True, scale),
+         lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True,
+                                                scale=scale),
+         2 * q_bytes + 2 * kv_bytes + lse_bytes, 2 * 2 * hd * pairs,
+         launches_d["flash_attention"],
+         {k_: att_err["flash_attention/bfloat16"][k_]
+          for k_ in ("out", "lse")}),
+        ("flash_attention_bwd",
+         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+         "src/repro/kernels/flash_attention/kernel.py:186",
+         lambda: flash_kernel.flash_attention_bwd_cuda(q, k, v, out, lse, do,
+                                                       True, scale),
+         lambda: flash_attention_bwd_ref(q, k, v, out, lse, do, True, scale),
+         lambda: torch.autograd.grad(out_s, (qs, ks, vs), do,
+                                     retain_graph=True),
+         # q, out, do, lse, k, v read; dq, dk, dv written
+         4 * q_bytes + 4 * kv_bytes + lse_bytes, 5 * 2 * hd * pairs,
+         launches_d["flash_attention_bwd"],
+         {k_: bwd_err["flash_attention_bwd/bfloat16"][k_]
+          for k_ in ("dq", "dk", "dv")}))
+    for name, src, replaces, kernel_fn, plain_fn, library_fn, nbytes, \
+            flops, launches, errs in train_rows:
+        ms = time_ms(kernel_fn, reps=5, rounds=3)
+        bnd = bound(nbytes, flops, FLOPS_PER_S["bfloat16"], "flops")
+        rows_out.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=launches, launches_per_step=launches / TRAIN_STEPS,
+            max_abs_err=max(errs.values()), errors=errs, dtype="bfloat16",
+            ms=ms, plain_ms=time_ms(plain_fn, reps=2, rounds=3),
+            bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"],
+            library_ms=time_ms(library_fn, reps=5, rounds=3), eager_ms=ms,
+            bytes=nbytes, flops=flops,
+            shape={"q": list(q.shape), "kv": list(k.shape), "causal": True},
+            path="D"))
     emit(kernels=rows_out)
     emit(ok=True, device={"platform": "gpu", "kind": gpu, "count": count})
     return 0

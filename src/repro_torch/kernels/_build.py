@@ -25,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("arena_probe", "fused_retrieve", "flash_attention",
-           "decode_attention")
+           "flash_attention_bwd", "decode_attention")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

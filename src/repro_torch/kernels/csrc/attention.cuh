@@ -1,5 +1,6 @@
 // Shared device code of the attention kernels: 16-byte loads of bf16 or
-// f32 rows into f32 registers, f32 stores back to the input type, and
+// f32 rows into f32 registers, 64-row tiles staged in shared memory as
+// f32 (row-major or transposed), f32 stores back to the input type, and
 // half-warp reductions.
 #pragma once
 
@@ -58,6 +59,54 @@ __device__ __forceinline__ void load_smem(const float* p, float* o) {
   } else {
 #pragma unroll
     for (int i = 0; i < N; ++i) o[i] = p[i];
+  }
+}
+
+// Rows [row0, row0 + 64) of a (L, D) matrix into dst[d][r] (stride 64),
+// zeros past L. Consecutive threads take consecutive rows, so the
+// transposed stores hit consecutive banks.
+template <typename T, int D, int THREADS>
+__device__ __forceinline__ void load_transposed(const T* __restrict__ src,
+                                                int row0, int L,
+                                                float* __restrict__ dst,
+                                                int tid) {
+  constexpr int V = kVec<T>;
+  constexpr int CH = D / V;
+#pragma unroll
+  for (int i = tid; i < 64 * CH; i += THREADS) {
+    const int r = i % 64, ch = i / 64;
+    float x[V];
+    if (row0 + r < L) {
+      load_vec(src + (size_t)(row0 + r) * D + ch * V, x);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) x[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < V; ++e) dst[(ch * V + e) * 64 + r] = x[e];
+  }
+}
+
+// Rows [row0, row0 + 64) of a (L, D) matrix into dst[r][d], zeros past L;
+// coalesced loads.
+template <typename T, int D, int THREADS>
+__device__ __forceinline__ void load_rows(const T* __restrict__ src,
+                                          int row0, int L,
+                                          float* __restrict__ dst, int tid) {
+  constexpr int V = kVec<T>;
+  constexpr int CH = D / V;
+#pragma unroll
+  for (int i = tid; i < 64 * CH; i += THREADS) {
+    const int r = i / CH, ch = i % CH;
+    float x[V];
+    if (row0 + r < L) {
+      load_vec(src + (size_t)(row0 + r) * D + ch * V, x);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) x[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < V; ++e) dst[r * D + ch * V + e] = x[e];
   }
 }
 

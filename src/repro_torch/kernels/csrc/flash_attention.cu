@@ -44,54 +44,6 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (size_t)(D * BQ + D * BK + BK * D + BQ * PS);
 }
 
-// Rows [row0, row0 + 64) of a (L, D) matrix into dst[d][r] (stride 64),
-// zeros past L. Consecutive threads take consecutive rows, so the
-// transposed stores hit consecutive banks.
-template <typename T, int D>
-__device__ __forceinline__ void load_transposed(const T* __restrict__ src,
-                                                int row0, int L,
-                                                float* __restrict__ dst,
-                                                int tid) {
-  constexpr int V = repro::kVec<T>;
-  constexpr int CH = D / V;
-#pragma unroll
-  for (int i = tid; i < 64 * CH; i += THREADS) {
-    const int r = i % 64, ch = i / 64;
-    float x[V];
-    if (row0 + r < L) {
-      repro::load_vec(src + (size_t)(row0 + r) * D + ch * V, x);
-    } else {
-#pragma unroll
-      for (int e = 0; e < V; ++e) x[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < V; ++e) dst[(ch * V + e) * 64 + r] = x[e];
-  }
-}
-
-// Rows [row0, row0 + 64) of a (L, D) matrix into dst[r][d], zeros past L;
-// coalesced loads.
-template <typename T, int D>
-__device__ __forceinline__ void load_rows(const T* __restrict__ src,
-                                          int row0, int L,
-                                          float* __restrict__ dst, int tid) {
-  constexpr int V = repro::kVec<T>;
-  constexpr int CH = D / V;
-#pragma unroll
-  for (int i = tid; i < 64 * CH; i += THREADS) {
-    const int r = i / CH, ch = i % CH;
-    float x[V];
-    if (row0 + r < L) {
-      repro::load_vec(src + (size_t)(row0 + r) * D + ch * V, x);
-    } else {
-#pragma unroll
-      for (int e = 0; e < V; ++e) x[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < V; ++e) dst[r * D + ch * V + e] = x[e];
-  }
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -117,7 +69,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + ((size_t)b * Hkv + hk) * Lkv * D;
   const T* vb = v + ((size_t)b * Hkv + hk) * Lkv * D;
 
-  load_transposed<T, D>(qb, q0, Lq, Qs, tid);
+  repro::load_transposed<T, D, THREADS>(qb, q0, Lq, Qs, tid);
 
   float m[4], l[4], acc[4][DPT];
 #pragma unroll
@@ -132,8 +84,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kend = causal ? min(Lkv, q0 + BQ + off) : Lkv;
   for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();            // last tile's readers are done
-    load_transposed<T, D>(kb, k0, Lkv, Ks, tid);
-    load_rows<T, D>(vb, k0, Lkv, Vs, tid);
+    repro::load_transposed<T, D, THREADS>(kb, k0, Lkv, Ks, tid);
+    repro::load_rows<T, D, THREADS>(vb, k0, Lkv, Vs, tid);
     __syncthreads();
 
     float s[4][4];

@@ -1,10 +1,14 @@
-"""Public wrapper of flash-attention forward: the CUDA kernel for CUDA
-tensors, the plain torch version for CPU tensors.
+"""Public wrapper of flash attention, differentiable: the CUDA kernels for
+CUDA tensors, the plain torch versions for CPU tensors.
 
-Forward only.  A tensor that requires grad raises: the backward comes
-with ``flash_attention_bwd_pallas`` (ROADMAP Queue 2 item 9).  Lengths
-need no padding: the kernel masks the ragged edge, so any ``Lq <= Lkv``
-works (causal positions right-aligned, as in the reference).
+A ``torch.autograd.Function`` (the reference's ``jax.custom_vjp``): the
+forward saves only ``q, k, v, out, lse``, and the backward runs the FA2
+backward from them — ``csrc/flash_attention_bwd.cu`` on CUDA tensors,
+``flash_attention_bwd_ref`` on CPU tensors.  On CUDA either launches or
+raises; nothing falls back to the plain version.  ``lse`` is returned on
+request but carries no gradient.  Lengths need no padding: the kernels
+mask the ragged edge, so any ``Lq <= Lkv`` works (causal positions
+right-aligned, as in the reference).
 """
 from __future__ import annotations
 
@@ -13,29 +17,53 @@ from typing import Optional
 import torch
 
 from .._build import contiguous16
-from .kernel import DTYPE_CODES, HEAD_DIMS, flash_attention_cuda
-from .ref import attention_ref
+from .kernel import (DTYPE_CODES, HEAD_DIMS, flash_attention_bwd_cuda,
+                     flash_attention_cuda)
+from .ref import attention_ref, flash_attention_bwd_ref
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        if q.device.type == "cpu":
+            out, lse = attention_ref(q, k, v, causal, scale, True)
+        else:
+            q, k, v = (contiguous16(t) for t in (q, k, v))
+            out, lse = flash_attention_cuda(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.to(q.dtype)
+        if q.device.type == "cpu":
+            grads = flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                            ctx.causal, ctx.scale)
+        else:
+            _check_cuda(q, k=k, v=v, dout=dout)
+            grads = flash_attention_bwd_cuda(
+                q, k, v, out, lse, contiguous16(dout), ctx.causal,
+                ctx.scale)
+        return (*grads, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, scale: Optional[float] = None,
                     return_lse: bool = False):
     """q: (B, Hq, Lq, D); k, v: (B, Hkv, Lkv, D) with Hq % Hkv == 0.
-    Returns ``out`` (q's dtype) and, on request, ``lse`` (B, Hq, Lq) f32.
+    Returns ``out`` (q's dtype) and, on request, ``lse`` (B, Hq, Lq) f32;
+    gradients flow to q, k and v through ``out``.
 
-    The device of ``q`` decides: CPU runs the plain version, CUDA launches
-    the kernel (raising on anything it cannot take)."""
+    The device of ``q`` decides: CPU runs the plain versions, CUDA launches
+    the kernels (raising on anything they cannot take)."""
     _check_shapes(q, k, v, causal)
-    if any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention is forward-only in repro_torch: the backward "
-            "kernel is ROADMAP Queue 2 item 9")
-    scale = scale if scale is not None else q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal, scale, return_lse)
-    _check_cuda(q, k, v)
-    out, lse = flash_attention_cuda(*(contiguous16(t) for t in (q, k, v)),
-                                    causal, float(scale))
+    scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
+    if q.device.type != "cpu":
+        _check_cuda(q, k=k, v=v)
+    out, lse = _FlashAttention.apply(q, k, v, causal, scale)
     return (out, lse) if return_lse else out
 
 
@@ -53,11 +81,11 @@ def _check_shapes(q, k, v, causal) -> None:
                          f"{k.shape[2]} leaves rows with no visible key")
 
 
-def _check_cuda(q, k, v) -> None:
+def _check_cuda(q, **others: torch.Tensor) -> None:
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {dev}")
-    for name, t in (("k", k), ("v", v)):
+    for name, t in others.items():
         if t.device != dev or t.dtype != q.dtype:
             raise ValueError(f"flash_attention: {name} is {t.dtype} on "
                              f"{t.device}, q is {q.dtype} on {dev}")

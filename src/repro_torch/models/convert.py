@@ -26,16 +26,20 @@ def params_from_jax(cfg: ModelConfig, tree: Any, device="cpu",
     config's) on ``device``.  Raises on a missing, extra or misshapen
     leaf."""
     dtype = DTYPES[cfg.dtype] if dtype is None else dtype
-    return _convert(tree, param_shapes(cfg), "params", torch.device(device),
-                    dtype)
+    return tree_from_numpy(tree, param_shapes(cfg), "params",
+                           torch.device(device), dtype)
 
 
-def _convert(tree, shapes, path: str, device, dtype):
+def tree_from_numpy(tree, shapes, path: str, device, dtype):
+    """``tree`` (nested dict of numpy arrays) as torch tensors of ``dtype``
+    on ``device``; its keys and shapes must be those of ``shapes``, else
+    ValueError naming the first leaf at ``path`` that differs."""
     if isinstance(shapes, dict):
         if not isinstance(tree, dict) or set(tree) != set(shapes):
             got = sorted(tree) if isinstance(tree, dict) else type(tree)
             raise ValueError(f"{path}: keys {got}, want {sorted(shapes)}")
-        return {k: _convert(tree[k], shapes[k], f"{path}.{k}", device, dtype)
+        return {k: tree_from_numpy(tree[k], shapes[k], f"{path}.{k}", device,
+                                   dtype)
                 for k in shapes}
     a = np.asarray(tree)
     if a.shape != tuple(shapes):

@@ -1,4 +1,5 @@
-"""Model API of the port: init, forward and the two serving steps.
+"""Model API of the port: init, forward, the training loss and the two
+serving steps.
 
 Dense decoders only (``paper-cftrag``, ``qwen2-0.5b``); other families
 raise ``NotImplementedError`` naming ROADMAP Queue 1 item 10.  The decode
@@ -33,6 +34,24 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 def forward(cfg: ModelConfig, params: Params,
             batch: Dict[str, Any]) -> torch.Tensor:
     return T.decoder_forward(cfg, params, batch["tokens"])
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
+            z_loss: float = 1e-4
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Masked cross-entropy plus ``z_loss`` times the mean squared
+    log-partition, over the tokens where ``batch["mask"]`` is 1.  batch:
+    ``tokens``, ``labels`` (B, L) int, ``mask`` (B, L).  Returns the loss
+    and ``{"ce", "z_loss", "tokens"}``, as the reference does."""
+    logits = forward(cfg, params, batch)               # (B, L, V) f32
+    mask = batch["mask"].float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
+    denom = mask.sum().clamp_min(1.0)
+    ce = ((lse - gold) * mask).sum() / denom
+    zl = (lse.square() * mask).sum() / denom
+    return ce + z_loss * zl, {"ce": ce, "z_loss": zl,
+                              "tokens": mask.sum().to(torch.int32)}
 
 
 def init_decode_state(cfg: ModelConfig, params: Params, batch_size: int,

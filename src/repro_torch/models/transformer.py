@@ -75,10 +75,21 @@ def _dense_layer_decode(cfg: ModelConfig, p: Params, x,
     return x + _mlp(p["mlp"], rmsnorm(p["ln2"], x))
 
 
-def tree_map(fn, tree):
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of a tree of dicts and of the same-keyed
+    trees ``rest``, in the order of :func:`tree_leaves`."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts, keys in sorted order (the
+    reference's ``jax.tree.leaves`` order)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
 
 
 def _tree_stack(trees):

@@ -8,7 +8,12 @@ and relative, the reference's own bounds for its kernels against its
 oracles (online against one-pass softmax, another summation order); f32
 log-sum-exp within 1e-5; bf16 outputs within 3e-2, about two bf16 ulps
 at the outputs' magnitude (both sides round an f32 result to bf16, and
-one ulp of disagreement in the f32 value can move the rounding)."""
+one ulp of disagreement in the f32 value can move the rounding).  f32
+gradients (dq, dk, dv) within 5e-5 absolute and relative, the bound of
+the reference's own gradient test (``tests/test_kernels.py``): the FA2
+backward from the saved lse against ``jax.grad``, other summation
+orders."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,12 +29,14 @@ from repro.kernels.flash_attention import flash_attention as ref_flash
 from repro_torch.kernels.decode_attention import (combine_partial_attention,
                                                   decode_attention,
                                                   decode_attention_ref)
-from repro_torch.kernels.flash_attention import attention_ref, \
-    flash_attention
+from repro_torch.kernels.flash_attention import (attention_ref,
+                                                 flash_attention,
+                                                 flash_attention_bwd_ref)
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 3e-2)}
 LSE_TOL = 1e-5
+GRAD_TOL = 5e-5
 
 
 def _pair(a: np.ndarray, dtype: str):
@@ -90,11 +97,86 @@ def test_flash_ragged_and_offset_lengths(lq, lkv, causal):
                                rtol=LSE_TOL)
 
 
+def _grads_torch(q, k, v, do, causal=True, scale=None):
+    """(dq, dk, dv) of sum(out * do) through the port's wrapper (its
+    autograd.Function on the CPU) and from ``flash_attention_bwd_ref``."""
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    tdo = torch.from_numpy(do)
+    out, lse = flash_attention(tq, tk, tv, causal=causal, scale=scale,
+                               return_lse=True)
+    auto = torch.autograd.grad(out, (tq, tk, tv), tdo)
+    plain = flash_attention_bwd_ref(tq.detach(), tk.detach(), tv.detach(),
+                                    out.detach(), lse, tdo, causal, scale)
+    return auto, plain
+
+
+def _grads_jax(fn, q, k, v, do):
+    out, vjp = jax.vjp(fn, *(jnp.asarray(x) for x in (q, k, v)))
+    return vjp(jnp.asarray(do))
+
+
+@pytest.mark.parametrize("b,hq,hkv,l,d", [
+    (2, 4, 2, 128, 32),       # GQA 2:1, tile-aligned
+    (1, 4, 2, 200, 64),       # GQA 2:1, length not a multiple of 128
+    (1, 14, 2, 128, 64),      # GQA 7:1, the generator's heads
+    (2, 7, 1, 200, 32),       # GQA 7:1, ragged
+])
+def test_flash_grads_match_reference_kernel(b, hq, hkv, l, d):
+    """f32 dq, dk, dv through the port against ``jax.grad`` of the
+    reference's custom_vjp (Pallas forward and backward, interpret mode)
+    and of its oracle."""
+    rng = np.random.default_rng(b * 1000 + hq * 10 + l + d)
+    q = rng.normal(size=(b, hq, l, d)).astype(np.float32)
+    k = rng.normal(size=(b, hkv, l, d)).astype(np.float32)
+    v = rng.normal(size=(b, hkv, l, d)).astype(np.float32)
+    do = rng.normal(size=(b, hq, l, d)).astype(np.float32)
+    auto, plain = _grads_torch(q, k, v, do)
+    want_kernel = _grads_jax(lambda *a: ref_flash(*a, True, None, True),
+                             q, k, v, do)
+    want = _grads_jax(lambda *a: ref_attention(*a, causal=True), q, k, v, do)
+    for got in (auto, plain):
+        for g, wk, w, name in zip(got, want_kernel, want, "qkv"):
+            assert g.shape == w.shape and g.dtype == torch.float32, name
+            for x in (wk, w):
+                np.testing.assert_allclose(g.numpy(), _f32(x), atol=GRAD_TOL,
+                                           rtol=GRAD_TOL, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("lq,lkv,causal", [(70, 200, True),
+                                           (1, 457, True),
+                                           (50, 96, False)])
+def test_flash_grads_ragged_and_offset_lengths(lq, lkv, causal):
+    """Gradients with Lq < Lkv (right-aligned causal positions) and of
+    full attention, against ``jax.grad`` of the reference's oracle (its
+    kernel takes only Lq % 128 == Lkv % 128)."""
+    rng = np.random.default_rng(lq * 3 + lkv)
+    q = rng.normal(size=(2, 4, lq, 32)).astype(np.float32)
+    k = rng.normal(size=(2, 2, lkv, 32)).astype(np.float32)
+    v = rng.normal(size=(2, 2, lkv, 32)).astype(np.float32)
+    do = rng.normal(size=(2, 4, lq, 32)).astype(np.float32)
+    auto, plain = _grads_torch(q, k, v, do, causal, 0.3)
+    want = _grads_jax(lambda *a: ref_attention(*a, causal=causal, scale=0.3),
+                      q, k, v, do)
+    for got in (auto, plain):
+        for g, w, name in zip(got, want, "qkv"):
+            np.testing.assert_allclose(g.numpy(), _f32(w), atol=GRAD_TOL,
+                                       rtol=GRAD_TOL, err_msg=f"d{name}")
+
+
 def test_flash_contract_errors():
     q = torch.zeros(1, 4, 8, 32)
     kv = torch.zeros(1, 2, 8, 32)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        flash_attention(q.clone().requires_grad_(), kv, kv)
+    # a tensor that requires grad gets gradients, equal to autograd
+    # through the plain forward
+    rng = np.random.default_rng(5)
+    qg, kg, vg = (torch.from_numpy(rng.normal(size=t.shape).astype(
+        np.float32)).requires_grad_() for t in (q, kv, kv))
+    got = torch.autograd.grad(flash_attention(qg, kg, vg).sum(),
+                              (qg, kg, vg))
+    want = torch.autograd.grad(attention_ref(qg, kg, vg).sum(),
+                               (qg, kg, vg))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=GRAD_TOL, rtol=GRAD_TOL)
     with pytest.raises(ValueError, match="causal"):
         flash_attention(torch.zeros(1, 4, 9, 32), kv, kv)
     with pytest.raises(ValueError, match="grouping"):

@@ -3,8 +3,12 @@ plain torch version on the same CUDA tensors — exact integer equality
 with dtypes for the retrieval kernels (the probe's bucket/slot on hits);
 for the attention kernels f32 out and lse within 1e-5 (another summation
 order in f32), bf16 out within 2^-6 |out| + 1e-6 elementwise (two bf16
-ulps: both round an f32 result) and lse within 1e-5 — and one
-``RAGPipeline.answer`` on the card against the same pipeline on the CPU.
+ulps: both round an f32 result) and lse within 1e-5; for the flash
+backward f32 dq/dk/dv within 1e-4 of the gradient's scale (summation
+order; the scale is the largest |grad| or 1, since at length 1 dq is
+zero up to rounding) and bf16 within 2^-6 |grad| + 1e-4 of that scale,
+elementwise — and one ``RAGPipeline.answer`` and one smoke-config train
+step on the card against the same on the CPU.
 Skips without a CUDA device; on the card run
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -17,12 +21,14 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.core import (CFTDeviceState, build_bank, build_forest,
                               hashing, retrieve_device)
-from repro_torch.data import hospital_corpus
+from repro_torch.data import (HashTokenizer, PackedBatches, TextDataset,
+                              hospital_corpus)
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_ref)
 from repro_torch.kernels.decode_attention import kernel as decode_kernel
-from repro_torch.kernels.flash_attention import attention_ref, \
-    flash_attention
+from repro_torch.kernels.flash_attention import (attention_ref,
+                                                 flash_attention,
+                                                 flash_attention_bwd_ref)
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.cuckoo_lookup import (cuckoo_lookup_arena,
                                                cuckoo_lookup_arena_ref)
@@ -31,7 +37,9 @@ from repro_torch.kernels.fused_retrieve import (fused_retrieve_ragged,
                                                 fused_retrieve_ragged_ref)
 from repro_torch.kernels.fused_retrieve import kernel as fused_kernel
 from repro_torch.models import lm
+from repro_torch.models.transformer import tree_leaves
 from repro_torch.serving import RAGPipeline, ServeEngine
+from repro_torch.training import AdamWConfig, adamw_init, make_train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -220,13 +228,62 @@ def test_decode_matches_plain(cuda_device, dtype, heads, lens):
     assert float((lse - want_lse).abs().max()) <= 1e-5
 
 
+def _close_grads(got, want, dtype):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        g, w = g.float(), w.float()
+        top = max(float(w.abs().max()), 1.0)   # unit-normal inputs
+        if dtype == torch.float32:
+            assert float((g - w).abs().max()) <= 1e-4 * top
+        else:
+            assert bool(((g - w).abs() <= w.abs() * 2 ** -6
+                         + 1e-4 * top).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,lq,lkv", [((4, 2, 32), 1, 1),
+                                          ((4, 2, 32), 127, 127),
+                                          ((14, 2, 64), 200, 200),
+                                          ((14, 2, 64), 70, 300),
+                                          ((4, 1, 64), 64, 64)])
+def test_flash_bwd_matches_plain(cuda_device, dtype, heads, lq, lkv):
+    hq, hkv, d = heads
+    g = torch.Generator(device=cuda_device).manual_seed(lq + lkv)
+    q, do = (torch.randn(2, hq, lq, d, generator=g, device=cuda_device)
+             .to(dtype) for _ in range(2))
+    k, v = (torch.randn(2, hkv, lkv, d, generator=g, device=cuda_device)
+            .to(dtype) for _ in range(2))
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    before = flash_kernel.BWD_LAUNCHES
+    got = flash_kernel.flash_attention_bwd_cuda(q, k, v, out, lse, do, True,
+                                                d ** -0.5)
+    assert flash_kernel.BWD_LAUNCHES == before + 1
+    want = flash_attention_bwd_ref(q, k, v, out, lse, do, True, d ** -0.5)
+    torch.cuda.synchronize()
+    _close_grads(got, want, dtype)
+    # through autograd: one backward launch, the same gradients
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(flash_attention(*leaves, causal=True), leaves,
+                               do)
+    assert flash_kernel.BWD_LAUNCHES == before + 2
+    _close_grads(auto, want, dtype)
+
+
 def test_attention_kernels_raise_instead_of_falling_back(cuda_device):
     q = torch.zeros(1, 4, 8, 48, device=cuda_device)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q, q[:, :2], q[:, :2])
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q.clone().requires_grad_(), q[:, :2], q[:, :2])
     h = torch.zeros(1, 4, 8, 32, device=cuda_device, dtype=torch.float16)
     with pytest.raises(ValueError, match="dtype"):
         flash_attention(h, h[:, :2], h[:, :2])
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention(h.clone().requires_grad_(), h[:, :2], h[:, :2])
+    with pytest.raises(ValueError):
+        flash_attention(torch.zeros(1, 4, 8, 32, device=cuda_device,
+                                    requires_grad=True),
+                        torch.zeros(1, 2, 8, 32), torch.zeros(1, 2, 8, 32))
     with pytest.raises(ValueError):
         decode_attention(q[:, :, 0].float(), q.cpu(), q.cpu(),
                          torch.ones(1, dtype=torch.int32))
@@ -250,3 +307,47 @@ def test_answer_on_card_equals_cpu(cuda_device):
     want = cpu.answer(corpus.queries[0], max_new_tokens=5)
     assert got.prompt == want.prompt
     assert got.output_ids == want.output_ids
+
+
+def test_train_step_on_card_equals_cpu(cuda_device):
+    """One f32 smoke-config train step on the card, through both flash
+    kernels, equals the same step on the CPU: loss and grad norm within
+    1e-5 relative (summation order); m and v within 1e-5 of each leaf's
+    largest entry; each parameter's update within 1e-3 of its leaf's
+    largest update where the gradient is above 1e-2 of the leaf's
+    largest.  (The first AdamW step moves an entry by lr * g / (|g| +
+    eps), so where g is at rounding noise its sign alone decides a step
+    of lr.)  Leaving out weight decay would move the norm scales by a
+    tenth of their largest update."""
+    cfg = get_arch("paper-cftrag").smoke().replace(attn_impl="flash")
+    pb = PackedBatches(TextDataset(hospital_corpus(num_trees=8).documents,
+                                   HashTokenizer(cfg.vocab)),
+                       batch_size=4, seq_len=96, prefetch=False)
+    batch = {k: torch.from_numpy(a) for k, a in pb.next_batch().items()}
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                            total_steps=4))
+    results = []
+    for dev in (cuda_device, torch.device("cpu")):
+        params = lm.init_params(cfg, torch.Generator().manual_seed(0), dev)
+        before = [t.clone() for t in tree_leaves(params)]  # updated in place
+        fwd0, bwd0 = flash_kernel.LAUNCHES, flash_kernel.BWD_LAUNCHES
+        p, s, m = step(params, adamw_init(params),
+                       {k: t.to(dev) for k, t in batch.items()})
+        if dev.type == "cuda":
+            assert flash_kernel.LAUNCHES - fwd0 == cfg.n_layers
+            assert flash_kernel.BWD_LAUNCHES - bwd0 == cfg.n_layers
+        updates = [(a - b).cpu() for a, b in zip(tree_leaves(p), before)]
+        results.append((updates, s, m))
+    (uc, sc, mc), (up, sp, mp) = results
+    for key in ("loss", "grad_norm"):
+        assert abs(float(mc[key]) - float(mp[key])) <= 1e-5 * abs(
+            float(mp[key]))
+    assert int(sc.step) == int(sp.step) == 1
+    for tc, tp in ((sc.m, sp.m), (sc.v, sp.v)):
+        for a, b in zip(tree_leaves(tc), tree_leaves(tp), strict=True):
+            assert float((a.cpu() - b).abs().max()) <= 1e-5 * float(
+                b.abs().max())
+    for a, b, m1 in zip(uc, up, tree_leaves(sp.m), strict=True):
+        clear = m1.abs() > 1e-2 * m1.abs().max()
+        assert float((a - b)[clear].abs().max()) <= 1e-3 * float(
+            b.abs().max())
